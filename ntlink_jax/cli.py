@@ -54,7 +54,7 @@ _INT_KEYS = {
 }
 _FLOAT_KEYS = {"x", "hybrid_host_frac"}
 
-HELP = f"""ntlink-tpu v{__version__}: TPU-native long-read scaffolding
+HELP = f"""ntlink-jax v{__version__}: long-read scaffolding on the GPU
 
 Usage: ntlink <target> [<target> ...] key=value ...
 
@@ -152,7 +152,7 @@ def main(argv: List[str] | None = None) -> int:
         print(HELP)
         return 0
     if "version" in targets:
-        print(f"ntlink-tpu v{__version__}")
+        print(f"ntlink-jax v{__version__}")
         return 0
 
     if "fac" in targets:
@@ -205,7 +205,7 @@ def main(argv: List[str] | None = None) -> int:
         return 2
 
     # parameter echo (reference ntlink_pair.py:538-558 prints its block)
-    print("ntlink-tpu parameters:")
+    print("ntlink-jax parameters:")
     for field in (
         "target", "reads", "k", "w", "t", "z", "n", "max_n", "g", "G",
         "merge_gap", "a", "f", "x", "overlap", "conservative", "sensitive",

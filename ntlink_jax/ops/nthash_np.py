@@ -19,7 +19,7 @@ tests/test_sketch.py). Semantics were reverse-engineered from those goldens:
   k-mers (k-mers containing non-ACGT are skipped, windows are over the list of
   valid k-mers), consecutive duplicate positions deduplicated.
 
-Everything here is O(n·k) gather+XOR and fully vectorized; the JAX/Pallas
+Everything here is O(n·k) gather+XOR and fully vectorized; the JAX
 backends reuse the same precomputed srol tables (as uint32 hi/lo pairs).
 """
 from __future__ import annotations
@@ -135,7 +135,7 @@ def hash_kmers(codes: np.ndarray, k: int) -> KmerHashes:
     """Compute all k-mer hashes for a code array (len >= k).
 
     Log-doubling over split (hi31, lo33) rotation fields — the same scheme
-    as the JAX/Pallas kernels (sketch_jax.py module docstring) recast as
+    as the JAX kernels (sketch_jax.py module docstring) recast as
     whole-array NumPy ufuncs: with F_s(i) the width-s forward hash,
     F_2s(i) = srol^s(F_s(i)) ^ F_s(i+s), so a width-k hash costs
     O(log k) array passes instead of O(k) table gathers — and ufuncs

@@ -1,15 +1,15 @@
 """JAX device backend for minimizer sketching.
 
-TPUs have no native 64-bit integer datapath, so every 64-bit hash lives as a
-uint32 (hi, lo) pair, and the kernel is pure XOR/shift/carry arithmetic on
-the VPU:
+Every 64-bit hash lives as a uint32 (hi, lo) pair, and the kernel is pure
+elementwise XOR/shift/carry arithmetic on shifted views of a row, which XLA
+fuses into loop kernels:
 
     fh/rh:    log-doubling sliding XOR — with F_s(i) the width-s forward
               ntHash, F_2s(i) = srol^s(F_s(i)) ^ F_s(i+s) (mirrored for the
               reverse-complement hash), so a width-k hash costs O(log k)
               whole-row ops; srol powers are constant split-rotations on
-              unpacked (hi31, bit32, lo32) planes (tiny-table gathers are
-              poison on the VPU — the width-1 base is a 3-deep select)
+              unpacked (hi31, bit32, lo32) planes (the width-1 base is a
+              3-deep select, not a table gather)
     canon:    64-bit add with carry — returned as the hash planes; the
               reported hash is a bijection of it (`finish_hash`: 64-bit
               constant multiply + xorshift) applied by consumers AFTER
@@ -347,12 +347,9 @@ def _sketch_step():
     configure()
     from ..parallel.mesh import sketch_step_packed
 
-    @functools.partial(jax.jit, static_argnums=(2, 3, 4, 5, 6))
-    def step(packed, lengths, k, w, L, max_mins, use_pallas, nmask=None):
-        return sketch_step_packed(
-            packed, lengths, k, w, L, max_mins, use_pallas=use_pallas,
-            nmask=nmask,
-        )
+    @functools.partial(jax.jit, static_argnums=(2, 3, 4, 5))
+    def step(packed, lengths, k, w, L, max_mins, nmask=None):
+        return sketch_step_packed(packed, lengths, k, w, L, max_mins, nmask=nmask)
 
     return step
 
@@ -373,8 +370,7 @@ class JaxSketcher:
     (reference semantics: minimizer windows run over w consecutive *valid*
     k-mers, spanning gaps; nthash_np.sketch_codes is the pinned ground
     truth). Uses the compacted sketch step: device->host transfers are
-    O(minimizers), not O(bases) — essential over slow links and at
-    assembly scale.
+    O(minimizers), not O(bases).
 
     Sequences longer than MAX_PAD (whole assembled contigs routinely are:
     the reference sketches multi-Mb drafts through indexlr, ntLink:198-199)
@@ -399,8 +395,10 @@ class JaxSketcher:
         # (process-wide so one file's batches teach the next file's)
         self._flat_caps = _SKETCH_FLAT_CAPS
         # rows the device could not sketch (sub-k, N-containing oversized,
-        # or minimizer-slot overflow) re-sketched exactly on the host
+        # or minimizer-slot overflow) re-sketched exactly on the host, and
+        # rows the device did sketch
         self.host_fallbacks = 0
+        self.device_rows = 0
 
     def _pad_len(self, n: int) -> int:
         p = self.MIN_PAD
@@ -503,19 +501,10 @@ class JaxSketcher:
             )
 
         def dispatch_batch(packed, nmask, lengths, pad, rows, row_codes, B) -> None:
-            # fused Pallas sketch core on real TPU (single VMEM tile up
-            # to L=16384, column-chunked beyond); XLA lowering elsewhere.
-            # N batches take the XLA compacted-window kernel.
-            from .sketch_pallas import pallas_mode
-
-            use_pallas = (
-                False
-                if nmask is not None
-                else (pallas_mode(pad) if B % 8 == 0 else False)
-            )
+            # N batches take the compacted-window kernel variant
             out = step(
                 jnp.asarray(packed), jnp.asarray(lengths), k, w, pad,
-                self._slots_for(pad, w), use_pallas,
+                self._slots_for(pad, w),
                 None if nmask is None else jnp.asarray(nmask),
             )
             # adaptive capped-transfer protocol (shared with the mapping
@@ -541,6 +530,7 @@ class JaxSketcher:
                         else m
                     )
                     continue
+                self.device_rows += 1
                 if n == 0:
                     results[(i, ci)] = Minimizers(
                         np.zeros(0, np.uint64), np.zeros(0, np.int64),

@@ -5,9 +5,13 @@ Scaling model (see DESIGN.md and the scaling recipe in README):
 - every host runs the same pipeline binary; `maybe_init_distributed()`
   connects them into one process group when the standard env vars are
   present (JAX_COORDINATOR / NTLINK_COORDINATOR, NTLINK_NUM_PROCESSES,
-  NTLINK_PROCESS_ID — or a TPU pod's automatic configuration). Setting
-  NTLINK_GROUP_DIR instead selects a shared-directory transport (NFS-style
-  deployments / tests) that needs no coordinator service,
+  NTLINK_PROCESS_ID). Setting NTLINK_GROUP_DIR instead selects a
+  shared-directory transport (NFS-style deployments / tests) that needs no
+  coordinator service,
+- one rank per host: each rank drives every local accelerator of its host
+  on the `data` mesh axis, so two ranks on one host would both claim the
+  same cards (a JAX process reserves most of each card's memory). Ranks
+  check this at start-up and fail when two share an accelerator host,
 - the contig index is built once per host (the build is deterministic, so
   every host builds the same replicated table from the same target FASTA),
 - read files are partitioned across hosts round-robin (`shard_read_files`);
@@ -53,7 +57,7 @@ class LocalTransport(Transport):
 
 
 class JaxTransport(Transport):
-    """Rides jax.distributed's coordination service (TPU pods)."""
+    """Rides jax.distributed's coordination service."""
 
     def __init__(self, process_id: int, n_processes: int):
         self.process_id = process_id
@@ -263,6 +267,7 @@ def maybe_init_distributed() -> Tuple[int, int]:
     )
     if group_dir and n > 1:
         _TRANSPORT = DirTransport(group_dir, pid, n)
+        _check_one_rank_per_host(_TRANSPORT)
         return pid, n
     if coord and n > 1:
         import jax
@@ -271,9 +276,29 @@ def maybe_init_distributed() -> Tuple[int, int]:
             coordinator_address=coord, num_processes=n, process_id=pid
         )
         _TRANSPORT = JaxTransport(pid, n)
+        _check_one_rank_per_host(_TRANSPORT)
         return pid, n
     _TRANSPORT = LocalTransport()
     return 0, 1
+
+
+def _check_one_rank_per_host(transport: Transport) -> None:
+    """Fail when two ranks share an accelerator host: each rank maps on
+    every local device, so both would claim the same cards. Ranks on the
+    CPU backend (tests, CPU-only hosts) share nothing and may co-locate."""
+    import socket
+
+    import jax
+
+    if jax.default_backend() == "cpu":
+        return
+    hosts = [b.decode() for b in transport.allgather(socket.gethostname().encode())]
+    shared = sorted({h for h in hosts if hosts.count(h) > 1})
+    if shared:
+        raise RuntimeError(
+            f"ranks share accelerator host(s) {shared}: run one rank per "
+            f"host (each rank drives all of its host's devices)"
+        )
 
 
 def shard_read_files(files: List[str], process_id: int, n_processes: int) -> List[str]:
@@ -358,7 +383,7 @@ def merge_file_parts(final_path: str, my_parts: Dict[int, str]) -> None:
     files are removed.
 
     Production note: parts travel over the group transport — for huge
-    verbose checkpoints on TPU pods prefer a shared filesystem
+    verbose checkpoints across hosts prefer a shared filesystem
     (NTLINK_GROUP_DIR), where the exchange is just renames.
     """
     transport = get_transport()

@@ -20,8 +20,9 @@ a hash bucket over the ``idx`` mesh axis:
   DeviceMapper drains both index layouts identically
   (`DeviceMapper(index_sharding="hash")` / CLI `index_sharding=hash`).
 
-The reduction rides ICI on a real pod slice; tests run it on the virtual
-CPU mesh and assert bit-equality with the replicated path.
+The reduction rides the device interconnect (NVLink between local GPUs);
+tests run it on the virtual CPU mesh and assert bit-equality with the
+replicated path.
 """
 from __future__ import annotations
 
@@ -29,17 +30,11 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:
-    from jax import shard_map
-    _CHECK_KW = {"check_vma": False}
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
-    _CHECK_KW = {"check_rep": False}
-
-from .mesh import _FIB, build_gpos_offsets, unpack_codes
-from ..ops.sketch_jax import finish_hash, sketch_batch_kernel
+from .mesh import _FIB, build_gpos_offsets, sketch_rows, unpack_codes
+from ..ops.sketch_jax import finish_hash
 
 
 class ShardedDeviceIndex:
@@ -148,13 +143,9 @@ def _sharded_join(mesh: Mesh, sidx: ShardedDeviceIndex, k: int, w: int,
     bits packed in rpos_packed bits 29/30 (the engine's standard anchor
     word).
 
-    Inside the shard-mapped body, per-rank block shapes are static, so the
-    fused Pallas sketch core is selected per-rank with the same gating as
-    the single-device step (TPU backend, L % 128 == 0, L <= 16384 for the
-    v5e VMEM budget, local rows % 8 == 0); CPU meshes (tests, dryruns)
-    keep the XLA lowering. `with_nmask=True` builds the N-batch variant:
-    a (B, L//8) bit-packed non-ACGT mask shards like the code rows and the
-    sketch takes the XLA compacted-window kernel (reference N semantics).
+    `with_nmask=True` builds the N-batch variant: a (B, L//8) bit-packed
+    non-ACGT mask shards like the code rows and the sketch takes the
+    compacted-window kernel (reference N semantics).
     """
     n_shards = sidx.n_shards
     mask = sidx.mask
@@ -200,39 +191,9 @@ def _sharded_join(mesh: Mesh, sidx: ShardedDeviceIndex, k: int, w: int,
     def step(codes, lengths, t_rows, *nm):
         # per-rank table block has a leading shard dim of 1
         t_rows = t_rows[0]
-        B_loc, L_loc = codes.shape
-        from ..ops.sketch_pallas import pallas_mode
-
-        if with_nmask:
-            from .mesh import unpack_bits
-
-            codes = jnp.where(
-                unpack_bits(nm[0], L_loc), jnp.uint8(4), codes
-            )
-            can_hi, can_lo, fwd, winner, emit = sketch_batch_kernel(
-                codes, lengths, k, w, compact_invalid=True
-            )
-            # fusion fence — same compile-time pathology as the other
-            # XLA-lowered sketch consumers at large L
-            can_hi, can_lo, fwd, winner, emit = jax.lax.optimization_barrier(
-                (can_hi, can_lo, fwd, winner, emit)
-            )
-        elif (pmode := pallas_mode(L_loc) if B_loc % 8 == 0 else False) == "chunked":
-            from ..ops.sketch_pallas import sketch_batch_pallas_chunked
-
-            can_hi, can_lo, fwd, winner, emit = sketch_batch_pallas_chunked(
-                codes.astype(jnp.int32), lengths, k, w
-            )
-        elif pmode:
-            from ..ops.sketch_pallas import sketch_batch_pallas
-
-            can_hi, can_lo, fwd, winner, emit = sketch_batch_pallas(
-                codes.astype(jnp.int32), lengths, k, w, False
-            )
-        else:
-            can_hi, can_lo, fwd, winner, emit = sketch_batch_kernel(
-                codes, lengths, k, w
-            )
+        can_hi, can_lo, fwd, winner, emit = sketch_rows(
+            codes, lengths, k, w, nm[0] if with_nmask else None
+        )
         sel = jnp.argsort(~emit, axis=1, stable=True)[:, :max_anchors]
         sel_ok = jnp.take_along_axis(emit, sel, axis=1)
         m_pos = jnp.take_along_axis(winner, sel, axis=1)
@@ -273,7 +234,7 @@ def _sharded_join(mesh: Mesh, sidx: ShardedDeviceIndex, k: int, w: int,
             P("data"), P("data"), data_spec, data_spec, data_spec, data_spec,
             data_spec, data_spec,
         ),
-        **_CHECK_KW,
+        check_vma=False,
     )
 
 

@@ -54,6 +54,11 @@ def ensure_contig_sketch_tsv(cfg: ScaffoldConfig, k: int, w: int, with_strand=Tr
         cfg.target, out, k, w, with_strand=with_strand, backend=backend,
         threads=cfg.t,
     )
+    if backend is not None:
+        for name in ("device_rows", "host_fallbacks", "device_seqs",
+                     "host_seqs"):
+            if hasattr(backend, name):
+                tracer.count(f"sketch/{name}", getattr(backend, name))
     return out
 
 
@@ -111,23 +116,35 @@ def _prechain_args(cfg: ScaffoldConfig, index: ContigIndex, contig_lengths):
 
 def _make_device_mapper(cfg: ScaffoldConfig, index: ContigIndex,
                         contig_lengths=None, runs_only: bool = False):
+    """The device mapper, or None for backend=numpy. backend=auto maps on
+    the host only when JAX is not installed; any other device error
+    propagates, so a broken device never passes for a host run."""
     if cfg.backend == "numpy":
         return None
     try:
         from .device_map import DeviceMapper
-
-        return DeviceMapper(
-            index, cfg.k, cfg.w, batch_bases=cfg.batch_bases,
-            with_hashes=cfg.repeats, index_sharding=cfg.index_sharding,
-            idx_shards=cfg.idx_shards,
-            prechain=_prechain_args(cfg, index, contig_lengths),
-            runs_only=runs_only,
-        )
-    except Exception as exc:  # pragma: no cover - no jax available
-        if cfg.backend == "jax":
+    except ImportError as exc:
+        if cfg.backend != "auto":
             raise
         log("Device backend unavailable, using NumPy:", exc)
         return None
+    mapper = DeviceMapper(
+        index, cfg.k, cfg.w, batch_bases=cfg.batch_bases,
+        with_hashes=cfg.repeats, index_sharding=cfg.index_sharding,
+        idx_shards=cfg.idx_shards,
+        prechain=_prechain_args(cfg, index, contig_lengths),
+        runs_only=runs_only,
+    )
+    if cfg.v:
+        import jax
+
+        dev = jax.local_devices()[0]
+        log(
+            f"Mapping on JAX platform {dev.platform} ({dev.device_kind}, "
+            f"{mapper.n_devices} device(s), index_sharding="
+            f"{mapper.index_sharding})"
+        )
+    return mapper
 
 
 def _make_native_chainer(mapper, contig_lengths):
@@ -451,6 +468,7 @@ def map_reads(
         if chainer is not None:
             mapper = host
 
+    fallbacks0 = getattr(mapper, "host_fallbacks", 0)
     try:
         if getattr(mapper, "runs_only", False):
             # O(runs) payloads carry no per-anchor data — incompatible
@@ -486,6 +504,11 @@ def map_reads(
     if paf_path:
         os.replace(paf_tmp, paf_path)
     log("Mapped", n_reads, "reads")
+    tracer.count("map/reads", n_reads)
+    if hasattr(mapper, "n_devices"):  # a DeviceMapper
+        host = mapper.host_fallbacks - fallbacks0
+        tracer.count("map/device_reads", n_reads - host)
+        tracer.count("map/device_host_fallbacks", host)
     return tally
 
 

@@ -24,14 +24,13 @@ def get_backend(name: str = "auto", threads: int = 1):
         return None
     try:
         from .ops import sketch_jax  # noqa: PLC0415
-
-        dev = sketch_jax.JaxSketcher()
-    except Exception:  # pragma: no cover - jax unavailable
-        if name in ("jax", "hybrid"):
+    except ImportError:
+        if name != "auto":
             # an explicitly pinned backend must not silently run as
-            # something else — `auto` degrades, a pinned name raises
+            # something else — `auto` degrades only without JAX installed
             raise
         return None
+    dev = sketch_jax.JaxSketcher()
     if name == "hybrid" or (name == "auto" and threads > 1):
         from .native import sketch_module
 
@@ -44,7 +43,7 @@ def get_backend(name: str = "auto", threads: int = 1):
         if name == "hybrid":
             raise RuntimeError(
                 "backend=hybrid requires the native C sketch module "
-                "(ntlink_tpu.native.sketch) — build it or use "
+                "(ntlink_jax.native.sketch) — build it or use "
                 "backend=jax/auto"
             )
     return dev

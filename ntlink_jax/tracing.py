@@ -3,7 +3,9 @@
 The reference tracks per-stage time/RSS externally via GNU `time -v` when
 `v=1` (reference ntLink:100-110); here tracing is in-process: every pipeline
 stage runs under a `stage()` span, and the collected spans are printed and
-written to `<prefix>.trace.json`. Setting `NTLINK_JAX_PROFILE=<dir>` (or
+written to `<prefix>.trace.json`, beside counters of where the work ran
+(`count()`: reads mapped on the device vs the exact host fallback, rows
+sketched on the device vs the host). Setting `NTLINK_JAX_PROFILE=<dir>` (or
 `jax_profile_dir` on the tracer) additionally captures a JAX device profile
 (TensorBoard format) around traced stages.
 """
@@ -16,7 +18,7 @@ import resource
 import sys
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 
 @dataclass
@@ -28,11 +30,12 @@ class Span:
 
 
 class Tracer:
-    """Collects stage spans; no-op when disabled."""
+    """Collects stage spans and counters; no-op when disabled."""
 
     def __init__(self, enabled: bool = False, jax_profile_dir: Optional[str] = None):
         self.enabled = enabled
         self.spans: List[Span] = []
+        self.counters: Dict[str, int] = {}
         self.jax_profile_dir = jax_profile_dir or os.environ.get(
             "NTLINK_JAX_PROFILE"
         )
@@ -70,9 +73,15 @@ class Tracer:
                 Span(name, time.time() - t0, time.process_time() - c0, rss)
             )
 
-    def report(self, out=sys.stdout) -> None:
+    def count(self, name: str, n: int) -> None:
+        """Add `n` to counter `name` (summed over the run)."""
+        if self.enabled:
+            self.counters[name] = self.counters.get(name, 0) + int(n)
+
+    def report(self, out=None) -> None:
         if not self.enabled or not self.spans:
             return
+        out = out or sys.stdout
         total = sum(s.wall_s for s in self.spans)
         print("\nStage trace:", file=out)
         for s in self.spans:
@@ -82,13 +91,19 @@ class Tracer:
                 file=out,
             )
         print(f"  {'TOTAL':<24} wall {total:8.2f}s", file=out)
+        for name in sorted(self.counters):
+            print(f"  {name:<32} {self.counters[name]}", file=out)
 
     def write_json(self, path: str) -> None:
         if not self.enabled:
             return
         with open(path, "w") as fh:
             json.dump(
-                [s.__dict__ for s in self.spans], fh, indent=1
+                {
+                    "spans": [s.__dict__ for s in self.spans],
+                    "counters": self.counters,
+                },
+                fh, indent=1,
             )
 
 

@@ -43,8 +43,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from ntlink_tpu.graphio import EdgeAttr, ScaffoldGraph
-from ntlink_tpu.layout import (
+from ntlink_jax.graphio import EdgeAttr, ScaffoldGraph
+from ntlink_jax.layout import (
     LayoutResult,
     assemble_paths,
     flip_node,

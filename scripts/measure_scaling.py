@@ -1,6 +1,6 @@
 """Throughput scaling measurement (BASELINE.md north star #3).
 
-Two legs, both runnable without TPU pod hardware:
+Two legs, both runnable on one CPU host:
 
 A. Virtual device mesh (1/2/4/8 CPU devices, jax
    xla_force_host_platform_device_count): times the sharded mapping step.
@@ -16,14 +16,14 @@ B. Multi-process DirTransport (1/2/4 ranks on this 4-core host): a FIXED
    then the file-ordered tally all-gather. Processes are real parallel
    hardware (separate cores), so efficiency_N = T_1 / (N * T_N) is a true
    scaling-efficiency measurement of the engine's host-parallel design
-   (per-file sharding + associative tally merge, distributed.py). On a TPU
-   pod the same exchange rides jax.distributed/ICI instead of a shared
+   (per-file sharding + associative tally merge, distributed.py). Across
+   GPU hosts the same exchange rides jax.distributed instead of a shared
    directory; the exchanged payload (the pair tally) is KBs per host and
    independent of read volume, so the transport is never the scaling
    bottleneck — the measured efficiency here is dominated by compute
-   partitioning, exactly as it would be on pod hardware.
+   partitioning, exactly as it would be across hosts.
 
-Writes SCALING_r04.json at the repo root.
+Writes scaling.json in the working directory (or the given path).
 
 Usage: python scripts/measure_scaling.py [out.json]
 """
@@ -69,9 +69,9 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np
 sys.path.insert(0, {repo!r} + "/scripts")
 from measure_scaling import make_dataset, K, W
-from ntlink_tpu.index import ContigIndex
-from ntlink_tpu.device_map import DeviceMapper
-from ntlink_tpu.ops import nthash_np
+from ntlink_jax.index import ContigIndex
+from ntlink_jax.device_map import DeviceMapper
+from ntlink_jax.ops import nthash_np
 
 contigs, reads = make_dataset(n_reads=768)
 index = ContigIndex.from_sketches(
@@ -97,11 +97,11 @@ sys.path.insert(0, {repo!r})
 import jax
 jax.config.update("jax_platforms", "cpu")
 import dataclasses
-from ntlink_tpu import pipeline
-from ntlink_tpu.config import ScaffoldConfig
-from ntlink_tpu.index import ContigIndex
-from ntlink_tpu.pairs import PairTally
-from ntlink_tpu.parallel.distributed import (
+from ntlink_jax import pipeline
+from ntlink_jax.config import ScaffoldConfig
+from ntlink_jax.index import ContigIndex
+from ntlink_jax.pairs import PairTally
+from ntlink_jax.parallel.distributed import (
     all_gather_file_tallies, maybe_init_distributed,
 )
 
@@ -110,7 +110,7 @@ read_files = sys.argv[3:]
 os.chdir(workdir)
 pid, n = maybe_init_distributed()
 index = ContigIndex.from_tsv(tsv)
-from ntlink_tpu.pipeline import read_scaffold_lengths
+from ntlink_jax.pipeline import read_scaffold_lengths
 contig_lengths = read_scaffold_lengths("target.fa")
 cfg = ScaffoldConfig(k={k}, w={w}, z={z}, backend="numpy", t=1,
                      reads=read_files)
@@ -170,9 +170,9 @@ def leg_a():
 
 
 def leg_b(tmp):
-    from ntlink_tpu.ops import nthash_np
-    from ntlink_tpu.index import ContigIndex
-    from ntlink_tpu.sketch import sketch_fasta_to_tsv
+    from ntlink_jax.ops import nthash_np
+    from ntlink_jax.index import ContigIndex
+    from ntlink_jax.sketch import sketch_fasta_to_tsv
 
     os.makedirs(tmp, exist_ok=True)
     contigs, reads = make_dataset(n_reads=8000)
@@ -268,7 +268,7 @@ def leg_b(tmp):
 
 def main():
     out_path = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
-        REPO, "SCALING_r04.json"
+        os.getcwd(), "scaling.json"
     )
     import tempfile
 

@@ -7,13 +7,13 @@ sys.path.insert(0, "/root/repo")
 
 import numpy as np  # noqa: E402
 
-from ntlink_tpu.jax_setup import configure  # noqa: E402
+from ntlink_jax.jax_setup import configure  # noqa: E402
 
 configure()
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from ntlink_tpu.parallel.mesh import (  # noqa: E402
+from ntlink_jax.parallel.mesh import (  # noqa: E402
     chain_anchors_device,
     summarize_runs_device,
 )

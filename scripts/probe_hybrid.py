@@ -9,11 +9,11 @@ sys.path.insert(0, "/root/repo")
 import numpy as np  # noqa: E402
 
 import bench  # noqa: E402
-from ntlink_tpu import pipeline  # noqa: E402
-from ntlink_tpu.config import ScaffoldConfig  # noqa: E402
-from ntlink_tpu.device_map import DeviceMapper  # noqa: E402
-from ntlink_tpu.host_map import HostMapper  # noqa: E402
-from ntlink_tpu.hybrid_map import HybridMapper  # noqa: E402
+from ntlink_jax import pipeline  # noqa: E402
+from ntlink_jax.config import ScaffoldConfig  # noqa: E402
+from ntlink_jax.device_map import DeviceMapper  # noqa: E402
+from ntlink_jax.host_map import HostMapper  # noqa: E402
+from ntlink_jax.hybrid_map import HybridMapper  # noqa: E402
 
 
 def main():

@@ -1,4 +1,4 @@
-"""Bounded human-scale stress: full 3 Gbase contig index on the real chip.
+"""Bounded human-scale stress: full 3 Gbase contig index on the GPU.
 
 Validates the DESIGN.md replicated-index sizing claim (~60 M minimizers for
 a 3 Gbase assembly at w=100) with measured numbers: native TSV index parse
@@ -21,7 +21,7 @@ d = sys.argv[1]
 n_reads = int(sys.argv[2]) if len(sys.argv) > 2 else 20000
 os.chdir(d)
 
-from ntlink_tpu.index import ContigIndex  # noqa: E402
+from ntlink_jax.index import ContigIndex  # noqa: E402
 
 
 def rss_gb():
@@ -39,7 +39,7 @@ print(
 
 import jax  # noqa: E402
 
-from ntlink_tpu.device_map import DeviceMapper  # noqa: E402
+from ntlink_jax.device_map import DeviceMapper  # noqa: E402
 
 t0 = time.time()
 mapper = DeviceMapper(idx, k=32, w=100)
@@ -57,7 +57,7 @@ print(
 def read_slice(path, n):
     import itertools
 
-    from ntlink_tpu.seqio.fastx import stream_codes
+    from ntlink_jax.seqio.fastx import stream_codes
 
     yield from itertools.islice(stream_codes(path), n)
 

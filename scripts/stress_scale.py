@@ -2,7 +2,7 @@
 with joins, run with per-stage tracing and memory capture. Usage:
     python scripts/stress_scale.py [workdir] [n_contigs] [contig_len] [n_reads]
 
-Presets (see STATUS.md for measured results):
+Presets (dataset: ntlink_jax.synth):
     100 Mb:   scripts/stress_scale.py /tmp/ntlink_stress 250 400000 10000
     200 Mb:   scripts/stress_scale.py /tmp/ntlink_stress 500 400000 20000
     human 3G: scripts/stress_scale.py /data 750 4000000 2500000
@@ -16,7 +16,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import numpy as np
 
 
 def main() -> None:
@@ -30,12 +29,6 @@ def main() -> None:
 
     os.makedirs(workdir, exist_ok=True)
     os.chdir(workdir)
-
-    ASCII = np.frombuffer(b"ACGT", np.uint8)
-    COMP = np.zeros(256, np.uint8)
-    for a, b in zip(b"ACGT", b"TGCA"):
-        COMP[a] = b
-    rng = np.random.default_rng(5)
 
     GAPPED = bool(os.environ.get("NTLINK_STRESS_GAPPED"))
 
@@ -54,47 +47,12 @@ def main() -> None:
 
     t0 = time.time()
     if not os.path.exists("target.fa"):
-        # vectorized generation (the 3 Gb preset writes ~33 GB of FASTA):
-        # one uint8 ASCII genome array; contigs are slices of it
-        total_len = N_CONTIGS * CONTIG_LEN + (N_CONTIGS - 1) * GAP
-        genome = ASCII[rng.integers(0, 4, total_len, dtype=np.uint8)]
-        with open("target.fa", "wb") as fh:
-            for i in range(N_CONTIGS):
-                off = i * (CONTIG_LEN + GAP)
-                ctg = genome[off : off + CONTIG_LEN]
-                if GAPPED:
-                    # emulate a rounds-2 input: draft scaffolds carry interior
-                    # N runs (exercises the device-side compacted-window sketch
-                    # path at scale); reads still come from the gapless truth
-                    ctg = ctg.copy()
-                    for _ in range(3):
-                        g0 = int(rng.integers(CONTIG_LEN // 10, CONTIG_LEN - 1000))
-                        ctg[g0 : g0 + int(rng.integers(100, 800))] = ord("N")
-                fh.write(b">c%d\n" % i)
-                fh.write(ctg.tobytes())
-                fh.write(b"\n")
-        print(f"target written in {time.time()-t0:.1f}s", flush=True)
+        from ntlink_jax.synth import write_dataset
 
-        t1 = time.time()
-        CHUNK = 2048  # gather index matrix is CHUNK x READ_LEN int64 (~200 MB)
-        err_n = int(READ_LEN * 0.04)
-        with open("reads.fa", "wb") as fh:
-            for base_r in range(0, N_READS, CHUNK):
-                n = min(CHUNK, N_READS - base_r)
-                starts = rng.integers(0, total_len - READ_LEN, n)
-                mat = genome[starts[:, None] + np.arange(READ_LEN)]
-                # substitution errors
-                rows = np.repeat(np.arange(n), err_n)
-                cols = rng.integers(0, READ_LEN, n * err_n)
-                mat[rows, cols] = ASCII[rng.integers(0, 4, n * err_n, dtype=np.uint8)]
-                # reverse-complement half the rows
-                flip = rng.random(n) < 0.5
-                mat[flip] = COMP[mat[flip][:, ::-1]]
-                for j in range(n):
-                    fh.write(b">r%d\n" % (base_r + j))
-                    fh.write(mat[j].tobytes())
-                    fh.write(b"\n")
-        del genome
+        write_dataset(
+            "reads.fa", {"target.fa": GAPPED}, N_CONTIGS, CONTIG_LEN,
+            N_READS, read_len=READ_LEN, gap=GAP,
+        )
         open(_marker, "w").close()
         print(
             f"dataset generated in {time.time()-t0:.1f}s "
@@ -104,13 +62,13 @@ def main() -> None:
         )
 
     if os.environ.get("NTLINK_STRESS_GEN_ONLY"):
-        # dataset staging only (the pipeline run needs the TPU; generation is
-        # CPU-only and can overlap other device work)
+        # dataset staging only (generation is CPU-only and can overlap
+        # other device work)
         sys.exit(0)
 
-    from ntlink_tpu import tracing
-    from ntlink_tpu.config import ScaffoldConfig
-    from ntlink_tpu.pipeline import run_scaffold
+    from ntlink_jax import tracing
+    from ntlink_jax.config import ScaffoldConfig
+    from ntlink_jax.pipeline import run_scaffold
 
 
     def device_mem(tag):
@@ -142,7 +100,7 @@ def main() -> None:
     )
 
     # verify: how many of the expected joins happened?
-    from ntlink_tpu.pathio import read_path_file
+    from ntlink_jax.pathio import read_path_file
 
     paths = list(read_path_file(cfg.resolved_prefix() + ".trimmed_scafs.path"))
     joined = sum(len([t for t in toks if not t.endswith("N")]) - 1 for _, toks in paths)

@@ -20,14 +20,14 @@ cp "$DATA/scaffolds_1.fa" "$DATA/long_reads_1.fa" .
 PYTHONPATH="$SITE:${PYTHONPATH:-}" python - <<'PY'
 import jax
 jax.config.update("jax_platforms", "cpu")
-import ntlink_tpu
-assert "prefix" in ntlink_tpu.__file__, ntlink_tpu.__file__
+import ntlink_jax
+assert "prefix" in ntlink_jax.__file__, ntlink_jax.__file__
 # native C sources must ship with the package (built on demand)
 import os
-pkg = os.path.dirname(ntlink_tpu.__file__)
+pkg = os.path.dirname(ntlink_jax.__file__)
 for src in ("native/fastxio.c", "native/chain.c"):
     assert os.path.exists(os.path.join(pkg, src)), src
-from ntlink_tpu.cli import main
+from ntlink_jax.cli import main
 import sys
 sys.argv = ["ntlink", "scaffold", "target=scaffolds_1.fa",
             "reads=long_reads_1.fa", "w=250", "backend=numpy"]
@@ -35,4 +35,4 @@ raise SystemExit(main())
 PY
 test -e scaffolds_1.fa.k32.w250.z1000.ntLink.scaffolds.fa
 test -x "$WORK/prefix/bin/ntlink"
-echo "ntlink-tpu installation OK"
+echo "ntlink-jax installation OK"

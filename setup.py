@@ -1,13 +1,13 @@
 from setuptools import find_packages, setup
 
 setup(
-    name="ntlink-tpu",
+    name="ntlink-jax",
     version="0.1.0",
-    description="TPU-native long-read genome scaffolding (JAX/XLA/Pallas)",
-    packages=find_packages(include=["ntlink_tpu", "ntlink_tpu.*"]),
-    package_data={"ntlink_tpu.native": ["*.c"]},
+    description="Long-read genome scaffolding on the GPU (JAX/XLA)",
+    packages=find_packages(include=["ntlink_jax", "ntlink_jax.*"]),
+    package_data={"ntlink_jax.native": ["*.c"]},
     python_requires=">=3.10",
     install_requires=["numpy"],
-    extras_require={"tpu": ["jax"]},
-    entry_points={"console_scripts": ["ntlink=ntlink_tpu.cli:main"]},
+    extras_require={"gpu": ["jax[cuda12]"]},
+    entry_points={"console_scripts": ["ntlink=ntlink_jax.cli:main"]},
 )

@@ -10,7 +10,7 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from ntlink_tpu.parallel.mesh import (  # noqa: E402
+from ntlink_jax.parallel.mesh import (  # noqa: E402
     BUCKET,
     SELECT_BLOCK,
     SELECT_CAP,
@@ -62,7 +62,7 @@ def test_bucket_spill_chains_stay_findable():
     """Force every entry into ONE home bucket: the spill chain must grow
     max_probes and every entry must still resolve, including entries
     whose chain wraps past the end of the table."""
-    from ntlink_tpu.parallel.mesh import _FIB
+    from ntlink_jax.parallel.mesh import _FIB
 
     rng = np.random.default_rng(4)
     # craft hashes whose (lo ^ hi) * FIB & mask all hit the LAST bucket
@@ -70,7 +70,7 @@ def test_bucket_spill_chains_stay_findable():
     pool = rng.integers(1, 2**63, 400_000, dtype=np.uint64)
     n_target = 3 * BUCKET  # needs a 3-bucket chain
     # table size for n_target entries (small tables build at avg fill 2)
-    from ntlink_tpu.parallel.mesh import BUCKET_LOAD_SMALL
+    from ntlink_jax.parallel.mesh import BUCKET_LOAD_SMALL
 
     nb = 2
     while nb * BUCKET_LOAD_SMALL < n_target:

@@ -10,8 +10,8 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from ntlink_tpu.mapping import AnchorHit, chain_read_hits  # noqa: E402
-from ntlink_tpu.parallel.mesh import (  # noqa: E402
+from ntlink_jax.mapping import AnchorHit, chain_read_hits  # noqa: E402
+from ntlink_jax.parallel.mesh import (  # noqa: E402
     RUN_LANES,
     chain_anchors_device,
 )
@@ -116,7 +116,7 @@ def test_random_parity():
 def test_random_parity_large_contig_count():
     """> NOISY_ONEHOT_MAX contigs forces the scatter form of the
     noisy-span filter — parity must hold there too."""
-    from ntlink_tpu.parallel.mesh import NOISY_ONEHOT_MAX
+    from ntlink_jax.parallel.mesh import NOISY_ONEHOT_MAX
 
     rng = np.random.default_rng(31)
     nc = NOISY_ONEHOT_MAX + 72
@@ -142,8 +142,8 @@ def test_runs_summary_parity():
     native chain.c run rows exactly — cid, merged anchor count, first and
     terminal anchor fields — over structured + randomized anchor sets,
     including merge-after-subsume cases."""
-    from ntlink_tpu.native import chain_module
-    from ntlink_tpu.parallel.mesh import summarize_runs_device
+    from ntlink_jax.native import chain_module
+    from ntlink_jax.parallel.mesh import summarize_runs_device
 
     cm = chain_module()
     if cm is None:

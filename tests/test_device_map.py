@@ -6,16 +6,16 @@ import shutil
 
 import jax
 
-from ntlink_tpu.config import ScaffoldConfig
-from ntlink_tpu.pipeline import pair_stage
+from ntlink_jax.config import ScaffoldConfig
+from ntlink_jax.pipeline import pair_stage
 
 from conftest import REF_TESTS_DIR
 
 
-def test_pair_stage_jax_backend_matches_numpy(tmp_path, monkeypatch):
+def test_pair_stage_jax_backend_matches_numpy(ref_tests_dir, tmp_path, monkeypatch):
     assert len(jax.devices()) == 8  # virtual CPU mesh from conftest
     for f in ("scaffolds_1.fa", "long_reads_1.fa"):
-        shutil.copy(os.path.join(REF_TESTS_DIR, f), tmp_path / f)
+        shutil.copy(os.path.join(ref_tests_dir, f), tmp_path / f)
     monkeypatch.chdir(tmp_path)
 
     outputs = {}
@@ -43,14 +43,14 @@ def test_pair_stage_jax_backend_matches_numpy(tmp_path, monkeypatch):
         ), artifact
 
 
-def test_pair_stage_runs_only_matches(tmp_path, monkeypatch):
+def test_pair_stage_runs_only_matches(ref_tests_dir, tmp_path, monkeypatch):
     """verbose=False engages the O(runs) D2H payload (device chaining +
     run summaries on-chip; C-worker chain_batch rows on host legs). The
     DOT and pairs.tsv artifacts must be byte-identical across the numpy
     (anchors + consumer chaining), jax (runs-only device payload), and
     hybrid (both legs runs-only) backends."""
     for f in ("scaffolds_1.fa", "long_reads_1.fa"):
-        shutil.copy(os.path.join(REF_TESTS_DIR, f), tmp_path / f)
+        shutil.copy(os.path.join(ref_tests_dir, f), tmp_path / f)
     monkeypatch.chdir(tmp_path)
 
     outputs = {}
@@ -88,11 +88,11 @@ def test_runs_only_mapper_rejects_verbose(tmp_path, monkeypatch):
     import numpy as np
     import pytest
 
-    from ntlink_tpu import pipeline
-    from ntlink_tpu.index import ContigIndex
-    from ntlink_tpu.device_map import DeviceMapper
-    from ntlink_tpu.native import chain_module
-    from ntlink_tpu.ops import nthash_np
+    from ntlink_jax import pipeline
+    from ntlink_jax.index import ContigIndex
+    from ntlink_jax.device_map import DeviceMapper
+    from ntlink_jax.native import chain_module
+    from ntlink_jax.ops import nthash_np
 
     if chain_module() is None:
         pytest.skip("native chain module not built")
@@ -128,13 +128,12 @@ def test_dryrun_multichip():
     __graft_entry__.dryrun_multichip(8)
 
 
-def test_scaffold_e2e_jax_backend(tmp_path, monkeypatch):
+def test_scaffold_e2e_jax_backend(golden_dir, tmp_path, monkeypatch):
     """Full scaffold flow (incl. overlap trim) through the device backend:
     byte-exact final FASTA vs golden."""
     import filecmp
 
-    from ntlink_tpu.pipeline import scaffold_stage
-    from conftest import GOLDEN_DIR
+    from ntlink_jax.pipeline import scaffold_stage
 
     for f in ("scaffolds_4.fa", "long_reads_4.fa.gz"):
         shutil.copy(os.path.join(REF_TESTS_DIR, f), tmp_path / f)
@@ -147,6 +146,6 @@ def test_scaffold_e2e_jax_backend(tmp_path, monkeypatch):
     final = scaffold_stage(cfg)
     assert filecmp.cmp(
         os.path.realpath(final),
-        os.path.join(GOLDEN_DIR, "scaffolds_4.fa.k40.w100.z1000.ntLink.scaffolds.fa"),
+        os.path.join(golden_dir, "scaffolds_4.fa.k40.w100.z1000.ntLink.scaffolds.fa"),
         shallow=False,
     )

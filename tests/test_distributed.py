@@ -1,7 +1,7 @@
 """Multi-host tally merge semantics (single-process exercised)."""
-from ntlink_tpu.mapping import AnchorHit, ContigRun
-from ntlink_tpu.pairs import PairTally
-from ntlink_tpu.parallel.distributed import (
+from ntlink_jax.mapping import AnchorHit, ContigRun
+from ntlink_jax.pairs import PairTally
+from ntlink_jax.parallel.distributed import (
     merge_tallies,
     serialize_tally,
     shard_read_files,
@@ -48,7 +48,7 @@ def test_shard_read_files():
 
 def _dir_allgather(base, rank, n, blobs, out, err):
     """Worker: one DirTransport rank doing len(blobs) collectives."""
-    from ntlink_tpu.parallel.distributed import DirTransport
+    from ntlink_jax.parallel.distributed import DirTransport
 
     try:
         t = DirTransport(base, rank, n, timeout=30.0)

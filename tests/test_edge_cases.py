@@ -3,11 +3,10 @@ import os
 import random
 import shutil
 
-from ntlink_tpu.config import ScaffoldConfig
-from ntlink_tpu.pipeline import run_scaffold, scaffold_stage
-from ntlink_tpu.seqio import stream_fastx
+from ntlink_jax.config import ScaffoldConfig
+from ntlink_jax.pipeline import run_scaffold, scaffold_stage
+from ntlink_jax.seqio import stream_fastx
 
-from conftest import REF_TESTS_DIR
 
 
 def write_fasta(path, records):
@@ -79,11 +78,11 @@ def test_empty_reads_file(tmp_path, monkeypatch):
     assert os.path.exists(os.path.realpath(final))
 
 
-def test_cli_drop_in(tmp_path, monkeypatch):
+def test_cli_drop_in(ref_tests_dir, tmp_path, monkeypatch):
     import subprocess
 
     for f in ("scaffolds_1.fa", "long_reads_1.fa"):
-        shutil.copy(os.path.join(REF_TESTS_DIR, f), tmp_path / f)
+        shutil.copy(os.path.join(ref_tests_dir, f), tmp_path / f)
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     proc = subprocess.run(
@@ -102,10 +101,10 @@ def test_cli_drop_in(tmp_path, monkeypatch):
     assert (tmp_path / "scaffolds_1.fa.k32.w250.z1000.ntLink.scaffolds.fa").exists()
 
 
-def test_non_conservative_mode_e2e(tmp_path, monkeypatch):
+def test_non_conservative_mode_e2e(ref_tests_dir, tmp_path, monkeypatch):
     # reference: conservative=False stitches across the n-sweep outputs
     for f in ("scaffolds_3.fa", "long_reads_3.fa.gz"):
-        shutil.copy(os.path.join(REF_TESTS_DIR, f), tmp_path / f)
+        shutil.copy(os.path.join(ref_tests_dir, f), tmp_path / f)
     monkeypatch.chdir(tmp_path)
     cfg = ScaffoldConfig(
         target="scaffolds_3.fa", reads=["long_reads_3.fa.gz"], k=24, w=250,
@@ -129,8 +128,8 @@ def test_native_chainer_many_distinct_contigs():
     fixed-size scratch raised OverflowError; scratch is dynamic now)."""
     import numpy as np
 
-    from ntlink_tpu.mapping import AnchorHit, chain_read_hits
-    from ntlink_tpu.native import chain_module
+    from ntlink_jax.mapping import AnchorHit, chain_read_hits
+    from ntlink_jax.native import chain_module
 
     mod = chain_module()
     if mod is None:
@@ -160,7 +159,7 @@ def test_native_chainer_many_distinct_contigs():
 def test_unknown_parameter_fails_loudly():
     import pytest
 
-    from ntlink_tpu.cli import build_config
+    from ntlink_jax.cli import build_config
 
     with pytest.raises(SystemExit):
         build_config({"bogus_knob": "1"})
@@ -172,7 +171,7 @@ def test_driver_keys_rejected_for_wrong_target():
     else they must fail loudly, not silently no-op."""
     import pytest
 
-    from ntlink_tpu.cli import build_config
+    from ntlink_jax.cli import build_config
 
     # scaffold-style call (no driver keys allowed)
     for key in ("out", "agp", "mappings", "rounds"):
@@ -185,7 +184,7 @@ def test_driver_keys_rejected_for_wrong_target():
 
 
 def test_default_idx_shards_divides_device_count():
-    from ntlink_tpu.device_map import default_idx_shards
+    from ntlink_jax.device_map import default_idx_shards
 
     assert default_idx_shards(1) == 1
     assert default_idx_shards(2) == 2

@@ -3,10 +3,10 @@ import os
 import re
 import shutil
 
-from ntlink_tpu.config import ScaffoldConfig
-from ntlink_tpu.pipeline import run_scaffold
+from ntlink_jax.config import ScaffoldConfig
+from ntlink_jax.pipeline import run_scaffold
 
-from conftest import GOLDEN_DIR, REF_TESTS_DIR
+from conftest import REF_TESTS_DIR
 
 
 def _run(tmp_path, monkeypatch, **kw):
@@ -29,13 +29,13 @@ def _run(tmp_path, monkeypatch, **kw):
     return recs
 
 
-def test_soft_mask_lowercases_fill(tmp_path, monkeypatch):
+def test_soft_mask_lowercases_fill(golden_dir, tmp_path, monkeypatch):
     recs = _run(tmp_path, monkeypatch, soft_mask=True)
     seq = recs["ntLink_0"]
     golden = {}
     name = None
     for line in open(
-        os.path.join(GOLDEN_DIR, "scaffolds_1.fa.k32.w250.z1000.ntLink.scaffolds.gap_fill.fa")
+        os.path.join(golden_dir, "scaffolds_1.fa.k32.w250.z1000.ntLink.scaffolds.gap_fill.fa")
     ):
         if line.startswith(">"):
             name = line[1:].strip()
@@ -49,6 +49,6 @@ def test_soft_mask_lowercases_fill(tmp_path, monkeypatch):
     assert runs, "soft-masked fill region missing"
 
 
-def test_stringent_mode_runs(tmp_path, monkeypatch):
+def test_stringent_mode_runs(ref_tests_dir, tmp_path, monkeypatch):
     recs = _run(tmp_path, monkeypatch, stringent=True)
     assert "ntLink_0" in recs and len(recs["ntLink_0"]) > 80_000

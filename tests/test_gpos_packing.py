@@ -11,14 +11,14 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 
-from ntlink_tpu.parallel.mesh import (  # noqa: E402
+from ntlink_jax.parallel.mesh import (  # noqa: E402
     DeviceIndex,
     build_gpos_offsets,
     mapping_step_packed,
     pack_codes,
 )
-from ntlink_tpu.ops import nthash_np  # noqa: E402
-from ntlink_tpu.stream_pipeline import next_q4  # noqa: E402
+from ntlink_jax.ops import nthash_np  # noqa: E402
+from ntlink_jax.stream_pipeline import next_q4  # noqa: E402
 
 
 def test_next_q4_tight_and_monotonic():

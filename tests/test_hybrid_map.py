@@ -6,14 +6,13 @@ import shutil
 import numpy as np
 import pytest
 
-from conftest import REF_TESTS_DIR
 
-from ntlink_tpu.device_map import DeviceMapper
-from ntlink_tpu.host_map import HostMapper
-from ntlink_tpu.hybrid_map import HybridMapper
-from ntlink_tpu.index import ContigIndex
-from ntlink_tpu.native import chain_module, sketch_module
-from ntlink_tpu.ops import nthash_np as nt
+from ntlink_jax.device_map import DeviceMapper
+from ntlink_jax.host_map import HostMapper
+from ntlink_jax.hybrid_map import HybridMapper
+from ntlink_jax.index import ContigIndex
+from ntlink_jax.native import chain_module, sketch_module
+from ntlink_jax.ops import nthash_np as nt
 
 pytestmark = pytest.mark.skipif(
     chain_module() is None or sketch_module() is None,
@@ -117,7 +116,7 @@ def test_idle_path_flushes_partial_batches():
     numbers until end-of-input."""
     import time
 
-    from ntlink_tpu.hybrid_map import _ReorderSink, _Runner
+    from ntlink_jax.hybrid_map import _ReorderSink, _Runner
 
     class Batchy:
         """Only emits results when its input stream ENDS (worst-case
@@ -161,8 +160,8 @@ def test_crashed_mapping_leaves_no_partial_checkpoint(tmp_path):
     """A mapping failure must leave neither verbose_mapping.tsv nor its
     .tmp behind — a truncated file would be silently trusted as a complete
     checkpoint on rerun (crash-safety: tmp + rename-on-success)."""
-    from ntlink_tpu import pipeline
-    from ntlink_tpu.config import ScaffoldConfig
+    from ntlink_jax import pipeline
+    from ntlink_jax.config import ScaffoldConfig
 
     index, reads = _workload(n_reads=50)
 
@@ -189,17 +188,17 @@ def test_crashed_mapping_leaves_no_partial_checkpoint(tmp_path):
     assert not os.path.exists(verbose + ".tmp")
 
 
-def test_hybrid_e2e_scaffold_bytes(tmp_path):
+def test_hybrid_e2e_scaffold_bytes(ref_tests_dir, tmp_path):
     """backend=hybrid produces byte-identical artifacts to backend=auto."""
-    from ntlink_tpu.config import ScaffoldConfig
-    from ntlink_tpu.pipeline import run_scaffold
+    from ntlink_jax.config import ScaffoldConfig
+    from ntlink_jax.pipeline import run_scaffold
 
     outs = {}
     for backend in ("auto", "hybrid"):
         d = tmp_path / backend
         os.makedirs(d)
         for f in ("scaffolds_2.fa", "long_reads_2.fq.gz"):
-            shutil.copy(os.path.join(REF_TESTS_DIR, f), d)
+            shutil.copy(os.path.join(ref_tests_dir, f), d)
         cwd = os.getcwd()
         os.chdir(d)
         try:
@@ -224,12 +223,12 @@ def test_hybrid_e2e_scaffold_bytes(tmp_path):
 
 
 def test_stalled_path_rescued_by_idle_path():
-    """A path that wedges (e.g. first device batch stuck behind a remote
+    """A path that wedges (e.g. first device batch stuck behind a long
     compile) must not strand the stream: after STALL_RESCUE_S the idle
     path re-runs the stranded items and the stream completes."""
     import threading
 
-    from ntlink_tpu.hybrid_map import HybridStream
+    from ntlink_jax.hybrid_map import HybridStream
 
     class WedgedPath:
         """Consumes input, never produces output."""
@@ -263,7 +262,7 @@ def test_rescue_survives_stale_fifo_window():
     the final drain spins forever on any backlog > window."""
     import threading
 
-    from ntlink_tpu.hybrid_map import HybridStream
+    from ntlink_jax.hybrid_map import HybridStream
 
     class WedgedPath:
         def map_stream_raw(self, named_codes):

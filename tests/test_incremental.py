@@ -4,15 +4,14 @@ import shutil
 
 import pytest
 
-from ntlink_tpu.config import ScaffoldConfig
-from ntlink_tpu.pipeline import scaffold_stage
-
-from conftest import REF_TESTS_DIR
+from ntlink_jax.config import ScaffoldConfig
+from ntlink_jax.pipeline import scaffold_stage
 
 
-def test_second_run_reuses_artifacts(tmp_path, monkeypatch):
+
+def test_second_run_reuses_artifacts(ref_tests_dir, tmp_path, monkeypatch):
     for f in ("scaffolds_1.fa", "long_reads_1.fa"):
-        shutil.copy(os.path.join(REF_TESTS_DIR, f), tmp_path / f)
+        shutil.copy(os.path.join(ref_tests_dir, f), tmp_path / f)
     monkeypatch.chdir(tmp_path)
     cfg = ScaffoldConfig(
         target="scaffolds_1.fa", reads=["long_reads_1.fa"], k=32, w=250,
@@ -44,9 +43,9 @@ def test_killed_sketch_leaves_no_reusable_artifact(tmp_path, monkeypatch):
     TSV is treated as stale rather than loaded as an empty index."""
     import os
 
-    from ntlink_tpu import pipeline
-    from ntlink_tpu.config import ScaffoldConfig
-    from ntlink_tpu.sketch import sketch_fasta_to_tsv
+    from ntlink_jax import pipeline
+    from ntlink_jax.config import ScaffoldConfig
+    from ntlink_jax.sketch import sketch_fasta_to_tsv
 
     fa = tmp_path / "t.fa"
     fa.write_text(">c1\n" + "ACGT" * 300 + "\n")

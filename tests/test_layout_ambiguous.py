@@ -3,8 +3,8 @@ heuristics — reference invokes abyss-scaffold at ntLink:228-231; no golden
 exercises branchy graphs, so these synthetic adversarial cases pin the
 behavior and prove the engine lays out at least as well as the previous
 unambiguous-chains-only layout)."""
-from ntlink_tpu.graphio import EdgeAttr, ScaffoldGraph
-from ntlink_tpu.layout import (
+from ntlink_jax.graphio import EdgeAttr, ScaffoldGraph
+from ntlink_jax.layout import (
     assemble_paths,
     flip_node,
     layout,
@@ -152,8 +152,8 @@ def test_transitive_reduction_dense_graph_stays_fast():
 
     import numpy as np
 
-    from ntlink_tpu.graphio import EdgeAttr, ScaffoldGraph
-    from ntlink_tpu.layout import remove_transitive_edges
+    from ntlink_jax.graphio import EdgeAttr, ScaffoldGraph
+    from ntlink_jax.layout import remove_transitive_edges
 
     rng = np.random.default_rng(3)
     g = ScaffoldGraph()
@@ -185,8 +185,8 @@ def test_parallel_n_sweep_matches_serial(tmp_path, monkeypatch):
 
     import numpy as np
 
-    from ntlink_tpu.graphio import EdgeAttr, ScaffoldGraph
-    from ntlink_tpu.layout import run_n_sweep
+    from ntlink_jax.graphio import EdgeAttr, ScaffoldGraph
+    from ntlink_jax.layout import run_n_sweep
 
     monkeypatch.chdir(tmp_path)
     rng = np.random.default_rng(9)
@@ -224,8 +224,8 @@ def test_native_transitive_reduce_matches_python():
     the traversal-order-sensitive cases near the hop limit."""
     import numpy as np
 
-    from ntlink_tpu.layout import _has_alternate_path, remove_transitive_edges
-    from ntlink_tpu.native import graph_module
+    from ntlink_jax.layout import _has_alternate_path, remove_transitive_edges
+    from ntlink_jax.native import graph_module
 
     mod = graph_module()
     assert mod is not None, "native graph module failed to build"
@@ -263,7 +263,7 @@ def test_native_transitive_reduce_matches_python():
 def test_native_transitive_reduce_deep_chain_hop_limit():
     """A bypass longer than MAX_TRANSITIVE_HOPS must NOT remove the direct
     edge; exactly at the limit it must (both engines agree)."""
-    from ntlink_tpu.layout import MAX_TRANSITIVE_HOPS, remove_transitive_edges
+    from ntlink_jax.layout import MAX_TRANSITIVE_HOPS, remove_transitive_edges
 
     for extra, expect_removed in ((0, True), (3, False)):
         hops = MAX_TRANSITIVE_HOPS + extra

@@ -1,8 +1,8 @@
 """Unit tests for the layout engine and stitch stage."""
 
-from ntlink_tpu.graphio import EdgeAttr, ScaffoldGraph
-from ntlink_tpu.layout import layout, remove_transitive_edges, run_n_sweep
-from ntlink_tpu.stitch import find_optimal_n, stitch
+from ntlink_jax.graphio import EdgeAttr, ScaffoldGraph
+from ntlink_jax.layout import layout, remove_transitive_edges, run_n_sweep
+from ntlink_jax.stitch import find_optimal_n, stitch
 
 
 def chain_graph(edges, lengths):
@@ -82,7 +82,7 @@ def test_sweep_prefers_higher_n_when_it_untangles(tmp_path, monkeypatch):
     files = run_n_sweep(g, lengths, 1, 5, 1000, 20, "pre")
     best = find_optimal_n(files)
     assert best == files[1]  # n=2
-    from ntlink_tpu.stitch import stitch
+    from ntlink_jax.stitch import stitch
 
     stitch(files, g, "out.path", max_gap=-1, conservative=True)
     with open("out.path") as fh:

@@ -1,7 +1,7 @@
 """Liftover coordinate-math unit tests (hand-computed expectations,
 reference ntlink_liftover_mappings.py:61-118)."""
 
-from ntlink_tpu.liftover import liftover_mappings
+from ntlink_jax.liftover import liftover_mappings
 
 
 def write_agp(path, rows):

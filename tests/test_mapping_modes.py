@@ -1,8 +1,8 @@
 """Unit tests for chaining modes (subsume marking, repeat filter, noisy
 filter) — semantics validated by inspection against the reference
 (ntlink_utils.py:200-294, ntlink_pair.py:368-374)."""
-from ntlink_tpu.mapping import AnchorHit, chain_read_hits
-from ntlink_tpu.pipeline import _host_hit_stream_codes  # noqa: F401 (import check)
+from ntlink_jax.mapping import AnchorHit, chain_read_hits
+from ntlink_jax.pipeline import _host_hit_stream_codes  # noqa: F401 (import check)
 
 
 def mk_hits(pattern):

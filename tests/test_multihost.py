@@ -19,7 +19,7 @@ import sys
 sys.path.insert(0, {repo!r})
 import jax
 jax.config.update("jax_platforms", "cpu")
-from ntlink_tpu.cli import main
+from ntlink_jax.cli import main
 sys.exit(main())
 """
 
@@ -57,7 +57,7 @@ def _run(cwd, env_extra=None):
     )
 
 
-def test_two_process_run_matches_single(tmp_path):
+def test_two_process_run_matches_single(ref_tests_dir, tmp_path):
     single = tmp_path / "single"
     _setup(single)
     proc = _run(single)
@@ -104,9 +104,9 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def test_two_process_jax_transport_matches_single(tmp_path):
+def test_two_process_jax_transport_matches_single(ref_tests_dir, tmp_path):
     """Same byte-parity scenario over the jax.distributed coordinator
-    transport (the TPU-pod path, distributed.py JaxTransport) instead of
+    transport (the multi-host path, distributed.py JaxTransport) instead of
     the shared-directory transport."""
     single = tmp_path / "single"
     _setup(single)

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from ntlink_tpu.mapping import AnchorHit, chain_read_hits
-from ntlink_tpu.native import chain_module
+from ntlink_jax.mapping import AnchorHit, chain_read_hits
+from ntlink_jax.native import chain_module
 
 
 @pytest.mark.parametrize("sensitive", [False, True])

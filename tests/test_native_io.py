@@ -4,11 +4,10 @@ import os
 import numpy as np
 import pytest
 
-from ntlink_tpu.ops import nthash_np
-from ntlink_tpu.seqio import stream_fastx
-from ntlink_tpu.seqio.fastx import stream_codes, _parse, open_text_maybe_gzip
+from ntlink_jax.ops import nthash_np
+from ntlink_jax.seqio import stream_fastx
+from ntlink_jax.seqio.fastx import stream_codes, _parse, open_text_maybe_gzip
 
-from conftest import REF_TESTS_DIR
 
 FILES = [
     "scaffolds_1.fa",
@@ -28,8 +27,8 @@ def python_records(path):
 
 
 @pytest.mark.parametrize("fname", FILES)
-def test_native_reader_matches_python(fname):
-    path = os.path.join(REF_TESTS_DIR, fname)
+def test_native_reader_matches_python(ref_tests_dir, fname):
+    path = os.path.join(ref_tests_dir, fname)
     native = [(r.name, r.seq, r.comment, r.qual) for r in stream_fastx(path)]
     ref = python_records(path)
     assert len(native) == len(ref)
@@ -38,8 +37,8 @@ def test_native_reader_matches_python(fname):
 
 
 @pytest.mark.parametrize("fname", ["long_reads_1.fa", "long_reads_2.fq.gz"])
-def test_stream_codes_matches_encode(fname):
-    path = os.path.join(REF_TESTS_DIR, fname)
+def test_stream_codes_matches_encode(ref_tests_dir, fname):
+    path = os.path.join(ref_tests_dir, fname)
     ref = [(r.name, nthash_np.encode(r.seq)) for r in stream_fastx(path)]
     got = list(stream_codes(path))
     assert len(got) == len(ref)
@@ -68,7 +67,7 @@ def test_prefetch_files_order_and_parity(tmp_path):
     order-sensitive artifact)."""
     import gzip
 
-    from ntlink_tpu.seqio.fastx import prefetch_files
+    from ntlink_jax.seqio.fastx import prefetch_files
 
     paths = []
     for i in range(5):
@@ -90,7 +89,7 @@ def test_prefetch_files_order_and_parity(tmp_path):
 
 
 def test_prefetch_files_propagates_exceptions(tmp_path):
-    from ntlink_tpu.seqio.fastx import prefetch_files
+    from ntlink_jax.seqio.fastx import prefetch_files
 
     ok = str(tmp_path / "ok.fa")
     with open(ok, "w") as fh:
@@ -111,8 +110,8 @@ def test_native_minimizer_render_matches_python(with_strand):
     including 64-bit-boundary hash values and empty input."""
     import numpy as np
 
-    from ntlink_tpu.ops.nthash_np import Minimizers
-    from ntlink_tpu.sketch import format_minimizers, format_minimizers_bytes
+    from ntlink_jax.ops.nthash_np import Minimizers
+    from ntlink_jax.sketch import format_minimizers, format_minimizers_bytes
 
     rng = np.random.default_rng(9)
     hashes = np.concatenate(
@@ -144,7 +143,7 @@ def test_prefetch_files_abandonment_releases_workers(tmp_path):
     import threading
     import time
 
-    from ntlink_tpu.seqio.fastx import prefetch_files
+    from ntlink_jax.seqio.fastx import prefetch_files
 
     paths = []
     for i in range(3):

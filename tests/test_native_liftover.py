@@ -8,8 +8,8 @@ non-monotonic-concatenation drops.
 import numpy as np
 import pytest
 
-import ntlink_tpu.liftover as lift_mod
-from ntlink_tpu.native import liftover_module
+import ntlink_jax.liftover as lift_mod
+from ntlink_jax.native import liftover_module
 
 
 def _write_agp(path, rows):
@@ -29,7 +29,7 @@ def _run_both(tmp_path, monkeypatch, verbose_lines, agp_rows, k=32):
     lift_mod.liftover_mappings(str(vp), str(ap), str(native_out), k)
 
     python_out = tmp_path / "python.tsv"
-    import ntlink_tpu.native as native_pkg
+    import ntlink_jax.native as native_pkg
 
     monkeypatch.setattr(native_pkg, "liftover_module", lambda: None)
     lift_mod.liftover_mappings(str(vp), str(ap), str(python_out), k)
@@ -126,7 +126,7 @@ def test_random_scenarios(tmp_path, monkeypatch, seed):
 def test_liftover_cli_target(tmp_path, monkeypatch):
     """`ntlink liftover agp=... mappings=...` — standalone drop-in for the
     reference's ntlink_liftover_mappings.py console script."""
-    from ntlink_tpu.cli import main
+    from ntlink_jax.cli import main
 
     agp = [("S1", 1, 1000, 1, "W", "ctgA", 1, 1000, "+")]
     _write_agp(tmp_path / "x.agp", agp)

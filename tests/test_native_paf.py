@@ -1,7 +1,7 @@
 """Native C PAF rendering == Python paf.py on adversarial hit patterns.
 
 The C renderer (native/chain.c render_paf) must byte-match the Python
-reference implementation (ntlink_tpu/paf.py, itself parity-tested against
+reference implementation (ntlink_jax/paf.py, itself parity-tested against
 the reference goldens) across every branch: already-ascending and
 already-descending runs, single-outlier repairs (drop i+1 / drop i),
 block splits, duplicate-ctg_pos tolerance, and <75% suppression.
@@ -9,9 +9,9 @@ block splits, duplicate-ctg_pos tolerance, and <75% suppression.
 import numpy as np
 import pytest
 
-from ntlink_tpu.mapping import AnchorHit, chain_read_hits
-from ntlink_tpu.native import chain_module
-from ntlink_tpu.paf import paf_lines
+from ntlink_jax.mapping import AnchorHit, chain_read_hits
+from ntlink_jax.native import chain_module
+from ntlink_jax.paf import paf_lines
 
 K, Z = 32, 1000
 
@@ -180,7 +180,7 @@ def test_native_paf_handcrafted_branches():
 @pytest.mark.parametrize("n_empty", [0, 3])
 def test_repeat_filter_batch_matches_python(n_empty):
     """Vectorized batch repeat filter == the per-read reference filter."""
-    from ntlink_tpu.pipeline import _repeat_filter_batch
+    from ntlink_jax.pipeline import _repeat_filter_batch
 
     rng = np.random.default_rng(17)
     n_reads = 60

@@ -4,8 +4,8 @@ anchor payload contract used by HostMapper / the native chain loop."""
 import numpy as np
 import pytest
 
-from ntlink_tpu.native import sketch_module
-from ntlink_tpu.ops import nthash_np as nt
+from ntlink_jax.native import sketch_module
+from ntlink_jax.ops import nthash_np as nt
 
 sm = sketch_module()
 pytestmark = pytest.mark.skipif(sm is None, reason="C build unavailable")
@@ -51,7 +51,7 @@ def test_fast_hash_matches_gather():
 
 def test_sketch_join_matches_lookup_many():
     """sketch_join == sketch + ContigIndex.lookup_many, payload-for-payload."""
-    from ntlink_tpu.index import ContigIndex
+    from ntlink_jax.index import ContigIndex
 
     rng = np.random.default_rng(11)
     k, w = 32, 100
@@ -96,9 +96,9 @@ def test_sketch_join_matches_lookup_many():
 
 def test_host_mapper_matches_device_semantics():
     """HostMapper raw payloads == DeviceMapper host fallback payloads."""
-    from ntlink_tpu.device_map import DeviceMapper
-    from ntlink_tpu.host_map import HostMapper
-    from ntlink_tpu.index import ContigIndex
+    from ntlink_jax.device_map import DeviceMapper
+    from ntlink_jax.host_map import HostMapper
+    from ntlink_jax.index import ContigIndex
 
     rng = np.random.default_rng(5)
     k, w = 32, 100

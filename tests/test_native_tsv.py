@@ -5,11 +5,10 @@ import os
 import numpy as np
 import pytest
 
-import ntlink_tpu.native as nat
-from ntlink_tpu.index import ContigIndex
-from ntlink_tpu.native import tsv_module
+import ntlink_jax.native as nat
+from ntlink_jax.index import ContigIndex
+from ntlink_jax.native import tsv_module
 
-from conftest import GOLDEN_DIR
 
 pytestmark = pytest.mark.skipif(
     tsv_module() is None, reason="C build unavailable"
@@ -27,10 +26,10 @@ def _contig_shape(path):
     )
 
 
-def test_native_tsv_matches_python_on_goldens():
+def test_native_tsv_matches_python_on_goldens(golden_dir):
     tsvs = [
         t
-        for t in sorted(glob.glob(os.path.join(GOLDEN_DIR, "*.tsv")))
+        for t in sorted(glob.glob(os.path.join(golden_dir, "*.tsv")))
         if _contig_shape(t)
     ]
     assert tsvs, "no contig-shape golden TSVs found"

@@ -5,10 +5,10 @@ import shutil
 
 import pytest
 
-from ntlink_tpu.config import ScaffoldConfig
-from ntlink_tpu.pipeline import scaffold_stage
+from ntlink_jax.config import ScaffoldConfig
+from ntlink_jax.pipeline import scaffold_stage
 
-from conftest import GOLDEN_DIR, REF_TESTS_DIR
+from conftest import REF_TESTS_DIR
 
 
 def run_case(tmp_path, monkeypatch, target, reads, k, w, merge_gap):
@@ -35,16 +35,16 @@ def assert_artifacts(prefix, golden_prefix, final):
     ), "final scaffolds mismatch"
 
 
-def test_overlap_trim_scaffolds_4_goldens(tmp_path, monkeypatch):
+def test_overlap_trim_scaffolds_4_goldens(golden_dir, tmp_path, monkeypatch):
     # goldens were produced with the default merge_gap=0
     cfg, final = run_case(
         tmp_path, monkeypatch, "scaffolds_4.fa", "long_reads_4.fa.gz", 40, 100, 0
     )
     prefix = cfg.resolved_prefix()
-    assert_artifacts(prefix, os.path.join(GOLDEN_DIR, prefix), final)
+    assert_artifacts(prefix, os.path.join(golden_dir, prefix), final)
 
 
-def test_overlap_trim_scaffolds_4_merge_gap(tmp_path, monkeypatch):
+def test_overlap_trim_scaffolds_4_merge_gap(golden_dir, tmp_path, monkeypatch):
     # reference test_4 scenario: merge_gap=20
     cfg, final = run_case(
         tmp_path, monkeypatch, "scaffolds_4.fa", "long_reads_4.fa.gz", 40, 100, 20
@@ -56,7 +56,7 @@ def test_overlap_trim_scaffolds_4_merge_gap(tmp_path, monkeypatch):
     # trim coordinates are independent of merge_gap: fa still byte-identical
     assert filecmp.cmp(
         f"{prefix}.trimmed_scafs.fa",
-        os.path.join(GOLDEN_DIR, f"{prefix}.trimmed_scafs.fa"),
+        os.path.join(golden_dir, f"{prefix}.trimmed_scafs.fa"),
         shallow=False,
     )
 
@@ -69,10 +69,10 @@ def test_overlap_trim_scaffolds_4_merge_gap(tmp_path, monkeypatch):
         ("scaffolds_3.fa", "long_reads_3.fa.gz", 24, 250),
     ],
 )
-def test_overlap_noop_goldens(tmp_path, monkeypatch, target, reads, k, w):
+def test_overlap_noop_goldens(golden_dir, tmp_path, monkeypatch, target, reads, k, w):
     cfg, final = run_case(tmp_path, monkeypatch, target, reads, k, w, 0)
     prefix = cfg.resolved_prefix()
-    assert_artifacts(prefix, os.path.join(GOLDEN_DIR, prefix), final)
+    assert_artifacts(prefix, os.path.join(golden_dir, prefix), final)
 
 
 def test_overlap_stage_memory_is_bounded(tmp_path, monkeypatch):
@@ -83,9 +83,9 @@ def test_overlap_stage_memory_is_bounded(tmp_path, monkeypatch):
 
     import numpy as np
 
-    from ntlink_tpu.config import ScaffoldConfig
-    from ntlink_tpu.graphio import EdgeAttr, ScaffoldGraph, write_dot
-    from ntlink_tpu.overlap import overlap_stage
+    from ntlink_jax.config import ScaffoldConfig
+    from ntlink_jax.graphio import EdgeAttr, ScaffoldGraph, write_dot
+    from ntlink_jax.overlap import overlap_stage
 
     monkeypatch.chdir(tmp_path)
     rng = np.random.default_rng(5)
@@ -122,18 +122,17 @@ def test_overlap_stage_memory_is_bounded(tmp_path, monkeypatch):
     assert big < 1.5 * small, (small, big)
 
 
-def test_verbose_minimizer_graph_dump(tmp_path, monkeypatch):
+def test_verbose_minimizer_graph_dump(ref_tests_dir, tmp_path, monkeypatch):
     """v=1 emits the reference's per-pair minimizer-graph DOT
     (ntlink_overlap_sequences.py:204-244): one graph block per overlapping
     join, node labels carrying (contig, position) sightings."""
     import re
 
-    from ntlink_tpu.config import ScaffoldConfig
-    from ntlink_tpu.pipeline import scaffold_stage
-    from conftest import REF_TESTS_DIR
+    from ntlink_jax.config import ScaffoldConfig
+    from ntlink_jax.pipeline import scaffold_stage
 
     for f in ("scaffolds_4.fa", "long_reads_4.fa.gz"):
-        shutil.copy(os.path.join(REF_TESTS_DIR, f), tmp_path / f)
+        shutil.copy(os.path.join(ref_tests_dir, f), tmp_path / f)
     monkeypatch.chdir(tmp_path)
     cfg = ScaffoldConfig(
         target="scaffolds_4.fa", reads=["long_reads_4.fa.gz"], k=40, w=100,

@@ -3,18 +3,17 @@ import filecmp
 import os
 import shutil
 
-from ntlink_tpu.config import ScaffoldConfig
-from ntlink_tpu.pipeline import pair_stage
-
-from conftest import REF_TESTS_DIR
+from ntlink_jax.config import ScaffoldConfig
+from ntlink_jax.pipeline import pair_stage
 
 
-def test_paf_device_backend(tmp_path, monkeypatch):
+
+def test_paf_device_backend(ref_tests_dir, tmp_path, monkeypatch):
     for backend in ("numpy", "jax"):
         d = tmp_path / backend
         d.mkdir()
         for f in ("scaffolds_4.fa", "long_reads_4_top5.fa"):
-            shutil.copy(os.path.join(REF_TESTS_DIR, f), d / f)
+            shutil.copy(os.path.join(ref_tests_dir, f), d / f)
         monkeypatch.chdir(d)
         cfg = ScaffoldConfig(
             target="scaffolds_4.fa", reads=["long_reads_4_top5.fa"], k=40,
@@ -30,14 +29,14 @@ def test_paf_device_backend(tmp_path, monkeypatch):
     )
 
 
-def test_repeats_device_backend(tmp_path, monkeypatch):
+def test_repeats_device_backend(ref_tests_dir, tmp_path, monkeypatch):
     """repeats=True through the native batch path (vectorized repeat filter
     + C chaining) == the NumPy per-hit reference path, byte for byte."""
     for backend in ("numpy", "jax"):
         d = tmp_path / backend
         d.mkdir()
         for f in ("scaffolds_2.fa", "long_reads_2.fq.gz"):
-            shutil.copy(os.path.join(REF_TESTS_DIR, f), d / f)
+            shutil.copy(os.path.join(ref_tests_dir, f), d / f)
         monkeypatch.chdir(d)
         cfg = ScaffoldConfig(
             target="scaffolds_2.fa", reads=["long_reads_2.fq.gz"], k=32,
@@ -60,9 +59,9 @@ def test_repeats_device_backend(tmp_path, monkeypatch):
         ), artifact
 
 
-def test_explicit_checkpoint(tmp_path, monkeypatch):
+def test_explicit_checkpoint(ref_tests_dir, tmp_path, monkeypatch):
     for f in ("scaffolds_1.fa", "long_reads_1.fa"):
-        shutil.copy(os.path.join(REF_TESTS_DIR, f), tmp_path / f)
+        shutil.copy(os.path.join(ref_tests_dir, f), tmp_path / f)
     monkeypatch.chdir(tmp_path)
     cfg = ScaffoldConfig(
         target="scaffolds_1.fa", reads=["long_reads_1.fa"], k=32, w=250,

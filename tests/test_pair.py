@@ -5,11 +5,11 @@ import shutil
 
 import pytest
 
-from ntlink_tpu.config import ScaffoldConfig
-from ntlink_tpu.graphio import graphs_equal, read_dot
-from ntlink_tpu.pipeline import pair_stage
+from ntlink_jax.config import ScaffoldConfig
+from ntlink_jax.graphio import graphs_equal, read_dot
+from ntlink_jax.pipeline import pair_stage
 
-from conftest import GOLDEN_DIR, REF_TESTS_DIR
+from conftest import REF_TESTS_DIR
 
 CONFIGS = [
     ("scaffolds_1.fa", "long_reads_1.fa", 32, 250),
@@ -59,7 +59,7 @@ def assert_verbose_compatible(mine_path, golden_path):
 
 
 @pytest.mark.parametrize("target,reads,k,w", CONFIGS)
-def test_pair_stage_matches_goldens(tmp_path, target, reads, k, w, monkeypatch):
+def test_pair_stage_matches_goldens(golden_dir, tmp_path, target, reads, k, w, monkeypatch):
     setup_workdir(tmp_path, target, reads)
     monkeypatch.chdir(tmp_path)
     cfg = ScaffoldConfig(
@@ -69,7 +69,7 @@ def test_pair_stage_matches_goldens(tmp_path, target, reads, k, w, monkeypatch):
     dot_path = pair_stage(cfg)
     prefix = cfg.resolved_prefix()
 
-    golden_prefix = os.path.join(GOLDEN_DIR, f"{target}.k{k}.w{w}.z1000")
+    golden_prefix = os.path.join(golden_dir, f"{target}.k{k}.w{w}.z1000")
     assert_verbose_compatible(
         f"{prefix}.verbose_mapping.tsv", f"{golden_prefix}.verbose_mapping.tsv"
     )
@@ -91,7 +91,7 @@ EXPECTED_PAF = {
 }
 
 
-def test_paf_output(tmp_path, monkeypatch):
+def test_paf_output(ref_tests_dir, tmp_path, monkeypatch):
     setup_workdir(tmp_path, "scaffolds_4.fa", "long_reads_4_top5.fa")
     monkeypatch.chdir(tmp_path)
     cfg = ScaffoldConfig(

@@ -4,16 +4,15 @@ import shutil
 
 import pytest
 
-from ntlink_tpu.config import ScaffoldConfig
-from ntlink_tpu.pipeline import run_rounds
+from ntlink_jax.config import ScaffoldConfig
+from ntlink_jax.pipeline import run_rounds
 
-from conftest import REF_TESTS_DIR
 
 
 @pytest.mark.parametrize("gap_fill", [False, True])
-def test_rounds(tmp_path, monkeypatch, gap_fill):
-    shutil.copy(os.path.join(REF_TESTS_DIR, "scaffolds_1.fa"), tmp_path / "scaffolds_1.fa")
-    shutil.copy(os.path.join(REF_TESTS_DIR, "long_reads_1.fa"), tmp_path / "long_reads_1.fa")
+def test_rounds(ref_tests_dir, tmp_path, monkeypatch, gap_fill):
+    shutil.copy(os.path.join(ref_tests_dir, "scaffolds_1.fa"), tmp_path / "scaffolds_1.fa")
+    shutil.copy(os.path.join(ref_tests_dir, "long_reads_1.fa"), tmp_path / "long_reads_1.fa")
     monkeypatch.chdir(tmp_path)
     k = 32 if gap_fill else 33
     cfg = ScaffoldConfig(
@@ -31,16 +30,16 @@ def test_rounds(tmp_path, monkeypatch, gap_fill):
     assert os.path.exists(ckpt)
 
 
-def test_rounds_via_cli(tmp_path, monkeypatch):
+def test_rounds_via_cli(ref_tests_dir, tmp_path, monkeypatch):
     """`ntLink_rounds run_rounds ... rounds=N` must accept the rounds knob
     (driver-level parameter, not a config field — regression test)."""
-    from ntlink_tpu.cli import main
+    from ntlink_jax.cli import main
 
     shutil.copy(
-        os.path.join(REF_TESTS_DIR, "scaffolds_1.fa"), tmp_path / "s.fa"
+        os.path.join(ref_tests_dir, "scaffolds_1.fa"), tmp_path / "s.fa"
     )
     shutil.copy(
-        os.path.join(REF_TESTS_DIR, "long_reads_1.fa"), tmp_path / "r.fa"
+        os.path.join(ref_tests_dir, "long_reads_1.fa"), tmp_path / "r.fa"
     )
     monkeypatch.chdir(tmp_path)
     rc = main(

@@ -14,9 +14,9 @@ import shutil
 import numpy as np
 import pytest
 
-from ntlink_tpu.config import ScaffoldConfig
-from ntlink_tpu.liftover import liftover_mappings
-from ntlink_tpu.pipeline import run_scaffold
+from ntlink_jax.config import ScaffoldConfig
+from ntlink_jax.liftover import liftover_mappings
+from ntlink_jax.pipeline import run_scaffold
 
 from test_synthetic_truth import make_genome, sample_reads
 
@@ -79,7 +79,7 @@ def _run_round2(src, dst, lifted: bool):
                 cfg.k,
             )
             # the checkpoint must actually bypass mapping
-            import ntlink_tpu.pipeline as pl
+            import ntlink_jax.pipeline as pl
 
             real_map = pl.map_reads
 

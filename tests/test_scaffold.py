@@ -5,10 +5,10 @@ import shutil
 
 import pytest
 
-from ntlink_tpu.config import ScaffoldConfig
-from ntlink_tpu.pipeline import scaffold_stage
+from ntlink_jax.config import ScaffoldConfig
+from ntlink_jax.pipeline import scaffold_stage
 
-from conftest import GOLDEN_DIR, REF_TESTS_DIR
+from conftest import REF_TESTS_DIR
 
 CONFIGS = [
     # (target, reads, k, w, expected stitch paths)
@@ -34,7 +34,7 @@ CONFIGS = [
 
 
 @pytest.mark.parametrize("target,reads,k,w,expected_paths", CONFIGS)
-def test_scaffold_no_overlap(tmp_path, monkeypatch, target, reads, k, w, expected_paths):
+def test_scaffold_no_overlap(golden_dir, tmp_path, monkeypatch, target, reads, k, w, expected_paths):
     shutil.copy(os.path.join(REF_TESTS_DIR, target), tmp_path / target)
     shutil.copy(os.path.join(REF_TESTS_DIR, reads), tmp_path / reads)
     monkeypatch.chdir(tmp_path)
@@ -50,7 +50,7 @@ def test_scaffold_no_overlap(tmp_path, monkeypatch, target, reads, k, w, expecte
     assert got == expected_paths
 
     # byte-exact stitch.path vs golden
-    golden_prefix = os.path.join(GOLDEN_DIR, f"{target}.k{k}.w{w}.z1000")
+    golden_prefix = os.path.join(golden_dir, f"{target}.k{k}.w{w}.z1000")
     assert filecmp.cmp(
         f"{prefix}.stitch.path", f"{golden_prefix}.stitch.path", shallow=False
     ), "stitch.path mismatch"

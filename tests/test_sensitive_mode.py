@@ -7,15 +7,14 @@ mapping superset still yields the known-correct join for scaffolds_1.
 import os
 import shutil
 
-from ntlink_tpu.config import ScaffoldConfig
-from ntlink_tpu.pipeline import scaffold_stage
-
-from conftest import REF_TESTS_DIR
+from ntlink_jax.config import ScaffoldConfig
+from ntlink_jax.pipeline import scaffold_stage
 
 
-def test_sensitive_dense_sketch_e2e(tmp_path, monkeypatch):
+
+def test_sensitive_dense_sketch_e2e(ref_tests_dir, tmp_path, monkeypatch):
     for f in ("scaffolds_1.fa", "long_reads_1.fa"):
-        shutil.copy(os.path.join(REF_TESTS_DIR, f), tmp_path / f)
+        shutil.copy(os.path.join(ref_tests_dir, f), tmp_path / f)
     monkeypatch.chdir(tmp_path)
     cfg = ScaffoldConfig(
         target="scaffolds_1.fa", reads=["long_reads_1.fa"], k=32, w=50,

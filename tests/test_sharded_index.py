@@ -4,9 +4,9 @@ import numpy as np
 import jax
 from jax.sharding import Mesh
 
-from ntlink_tpu.index import ContigIndex
-from ntlink_tpu.ops import nthash_np
-from ntlink_tpu.parallel.sharded_index import (
+from ntlink_jax.index import ContigIndex
+from ntlink_jax.ops import nthash_np
+from ntlink_jax.parallel.sharded_index import (
     ShardedDeviceIndex,
     make_sharded_index_join,
 )
@@ -67,9 +67,7 @@ import pytest
 
 
 @pytest.mark.parametrize("repeats", [False, True])
-def test_pair_stage_hash_sharded_matches_replicated(
-    tmp_path, monkeypatch, repeats
-):
+def test_pair_stage_hash_sharded_matches_replicated(ref_tests_dir, tmp_path, monkeypatch, repeats):
     """Full pair stage with index_sharding=hash on the 2-D virtual mesh ==
     the replicated-index outputs bit for bit; repeats=True exercises the
     matched-hash readback planes through the sharded join."""
@@ -77,16 +75,15 @@ def test_pair_stage_hash_sharded_matches_replicated(
     import os
     import shutil
 
-    from conftest import REF_TESTS_DIR
-    from ntlink_tpu.config import ScaffoldConfig
-    from ntlink_tpu.pipeline import pair_stage
+    from ntlink_jax.config import ScaffoldConfig
+    from ntlink_jax.pipeline import pair_stage
 
     outputs = {}
     for sharding in ("replicated", "hash"):
         d = tmp_path / sharding
         os.makedirs(d)
         for f in ("scaffolds_1.fa", "long_reads_1.fa"):
-            shutil.copy(os.path.join(REF_TESTS_DIR, f), d)
+            shutil.copy(os.path.join(ref_tests_dir, f), d)
         monkeypatch.chdir(d)
         cfg = ScaffoldConfig(
             target="scaffolds_1.fa", reads=["long_reads_1.fa"], k=32, w=250,

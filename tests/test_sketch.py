@@ -3,11 +3,11 @@ import os
 
 import pytest
 
-from ntlink_tpu.ops import nthash_np
-from ntlink_tpu.seqio import stream_fastx
-from ntlink_tpu.sketch import format_minimizers
+from ntlink_jax.ops import nthash_np
+from ntlink_jax.seqio import stream_fastx
+from ntlink_jax.sketch import format_minimizers
 
-from conftest import GOLDEN_DIR, REF_TESTS_DIR
+from conftest import GOLDEN_DIR
 
 GOLDEN_TSVS = [
     ("scaffolds_1.fa", 32, 250),
@@ -28,9 +28,9 @@ def load_golden(fa, k, w):
 
 
 @pytest.mark.parametrize("fa,k,w", GOLDEN_TSVS)
-def test_sketch_matches_golden_tsv(fa, k, w):
+def test_sketch_matches_golden_tsv(ref_tests_dir, fa, k, w):
     golden = load_golden(fa, k, w)
-    for rec in stream_fastx(os.path.join(REF_TESTS_DIR, fa)):
+    for rec in stream_fastx(os.path.join(ref_tests_dir, fa)):
         mins = nthash_np.sketch_sequence(rec.seq, k, w)
         assert format_minimizers(mins) == golden[rec.name], rec.name
 

@@ -2,11 +2,10 @@
 import numpy as np
 import pytest
 
-from ntlink_tpu.ops import nthash_np
-from ntlink_tpu.ops.sketch_jax import JaxSketcher
-from ntlink_tpu.seqio import stream_fastx
+from ntlink_jax.ops import nthash_np
+from ntlink_jax.ops.sketch_jax import JaxSketcher
+from ntlink_jax.seqio import stream_fastx
 
-from conftest import REF_TESTS_DIR
 
 
 def random_seq(rng, n):
@@ -31,9 +30,9 @@ def test_jax_matches_numpy_random(k, w):
         assert np.array_equal(g.forward, ref.forward), name
 
 
-def test_jax_matches_numpy_real_contigs():
+def test_jax_matches_numpy_real_contigs(ref_tests_dir):
     sk = JaxSketcher()
-    seqs = [(r.name, r.seq) for r in stream_fastx(f"{REF_TESTS_DIR}/scaffolds_2.fa")]
+    seqs = [(r.name, r.seq) for r in stream_fastx(f"{ref_tests_dir}/scaffolds_2.fa")]
     got = {name: m for name, _, m in sk.sketch_stream(iter(seqs), 32, 100)}
     for name, seq in seqs:
         ref = nthash_np.sketch_sequence(seq, 32, 100)

@@ -11,8 +11,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from ntlink_tpu.ops import nthash_np
-from ntlink_tpu.ops.sketch_jax import JaxSketcher, sketch_batch_kernel
+from ntlink_jax.ops import nthash_np
+from ntlink_jax.ops.sketch_jax import JaxSketcher, sketch_batch_kernel
 
 K, W = 32, 100
 
@@ -59,7 +59,7 @@ def test_compacted_kernel_matches_numpy(rows):
     )
     can_hi, can_lo, fwd = map(np.asarray, (can_hi, can_lo, fwd))
     winner, emit = np.asarray(winner), np.asarray(emit)
-    from ntlink_tpu.ops.sketch_jax import finish_hash
+    from ntlink_jax.ops.sketch_jax import finish_hash
 
     for r, c in enumerate(rows):
         ref = nthash_np.sketch_codes(c, K, W)
@@ -94,7 +94,7 @@ def test_sketch_stream_n_rows_on_device(rows):
 def test_compacted_kernel_random_property():
     """Randomized N placement across densities and (k, w) shapes."""
     rng = np.random.default_rng(99)
-    from ntlink_tpu.ops.sketch_jax import finish_hash
+    from ntlink_jax.ops.sketch_jax import finish_hash
     import jax.numpy as jnp
 
     for trial in range(6):

@@ -3,10 +3,9 @@ import os
 
 import pytest
 
-from ntlink_tpu.seqio import stream_fastx
-from ntlink_tpu.stats import fac_row, non_n_length
+from ntlink_jax.seqio import stream_fastx
+from ntlink_jax.stats import fac_row, non_n_length
 
-from conftest import GOLDEN_DIR
 
 CASES = [
     "scaffolds_1.fa.k32.w250.z1000.ntLink.scaffolds.fa",
@@ -17,8 +16,8 @@ CASES = [
 
 
 @pytest.mark.parametrize("fname", CASES)
-def test_fac_matches_abyssfac_golden(fname):
-    fa = os.path.join(GOLDEN_DIR, fname)
+def test_fac_matches_abyssfac_golden(golden_dir, fname):
+    fa = os.path.join(golden_dir, fname)
     lengths = [non_n_length(r.seq) for r in stream_fastx(fa)]
     got = fac_row(lengths, fname)
     with open(fa + ".abyssfac.tsv") as fh:

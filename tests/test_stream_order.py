@@ -11,9 +11,9 @@ ntlink_pair.py:336-414 consumes mappings strictly in read order.
 import numpy as np
 import pytest
 
-from ntlink_tpu.device_map import DeviceMapper
-from ntlink_tpu.index import ContigIndex
-from ntlink_tpu.ops import nthash_np
+from ntlink_jax.device_map import DeviceMapper
+from ntlink_jax.index import ContigIndex
+from ntlink_jax.ops import nthash_np
 
 K, W = 32, 100
 

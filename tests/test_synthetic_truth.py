@@ -9,8 +9,8 @@ import os
 
 import numpy as np
 
-from ntlink_tpu.config import ScaffoldConfig
-from ntlink_tpu.pipeline import run_scaffold
+from ntlink_jax.config import ScaffoldConfig
+from ntlink_jax.pipeline import run_scaffold
 
 BASES = np.array(list("ACGT"))
 
